@@ -15,6 +15,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
 
 
 def main(workdir: str = "/tmp/full_pipeline_project"):
+    from voicebridge_tpu.utils.jax_cache import setdefault_compilation_cache
+    setdefault_compilation_cache()
     from synth import LEXICON, make_speaker_corpus
     from voicebridge_tpu.config import (DecodeOptions, FmllrDecodeOptions,
                                         FrameOptions, MfccOptions,

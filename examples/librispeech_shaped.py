@@ -9,8 +9,7 @@ repository (unavailable offline); this uses the formant-synthesized
 LibriSpeech-shaped corpus (voicebridge_tpu/testing/) at full scale:
 60 speakers x 23 utts ~= 1.4k utts / ~1 h of 16 kHz audio, ~200-word
 vocabulary, trigram LM.  Per-stage wall time and audio-s/s are recorded with
-StageTimer and written to <workdir>/report.json (BASELINE.md scaling-report
-row: train + decode audio-s/s at 1 chip).
+StageTimer and written to <workdir>/report.json.
 
 Usage: python examples/librispeech_shaped.py [workdir] [--speakers N]
            [--utts N] [--test-per N] [--seed N]
@@ -23,11 +22,7 @@ import sys
 import time
 from pathlib import Path
 
-# persistent XLA compile cache: the decode/lattice window programs cost
-# minutes to compile cold on this worker (see bench.py); warm runs skip it
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from voicebridge_tpu.utils.jax_cache import setdefault_compilation_cache
-setdefault_compilation_cache()
 
 
 def main(argv=None):
@@ -48,7 +43,8 @@ def main(argv=None):
     ap.add_argument("--tri-iters", type=int, default=14)
     args = ap.parse_args(argv)
 
-    import numpy as np
+    from voicebridge_tpu.utils.jax_cache import setdefault_compilation_cache
+    setdefault_compilation_cache()
 
     from voicebridge_tpu.config import (DecodeOptions, FmllrDecodeOptions,
                                         FrameOptions, MfccOptions,

@@ -23,6 +23,8 @@ import numpy as np
 
 
 def main(workdir: str = "/tmp/yesno_project"):
+    from voicebridge_tpu.utils.jax_cache import setdefault_compilation_cache
+    setdefault_compilation_cache()
     from synth import LEXICON, make_corpus
     from voicebridge_tpu.config import (DecodeOptions, FrameOptions,
                                         MfccOptions, MonoTrainOptions)

@@ -7,8 +7,7 @@ compiles once).  A second run over the same workdir skips training (mtime
 stage-skip) and decodes with every program cached — the production
 steady-state.  This tool takes both report.json files and emits one report
 whose decode_*/align_* rows come from the WARM run, with the cold run's
-walls preserved as ``<stage>_cold`` rows, so REPORT.md can show both
-honestly.
+walls preserved as ``<stage>_cold`` rows, so a report can show both.
 
 Usage: python tools/merge_reports.py cold.json warm.json out.json
 """

@@ -1,15 +1,15 @@
-"""voicebridge_tpu — a TPU-native GMM-HMM speech-recognition framework.
+"""voicebridge_tpu — a batched GMM-HMM speech-recognition framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 AI-TOOLKIT/VoiceBridge (a C++/MKL packaging of the classical Kaldi GMM-HMM
-pipeline; see /root/reference): data preparation, lexicon/G2P, n-gram language
+pipeline): data preparation, lexicon/G2P, n-gram language
 models, MFCC/CMVN/delta/LDA features, monophone -> triphone -> LDA+MLLT ->
 SAT/fMLLR acoustic-model training via EM with Viterbi realignment, HCLG WFST
 graph compilation, beam-search decoding, and WER scoring.
 
-TPU-first design principles:
-  * features / GMM likelihoods / Viterbi / EM statistics run as batched XLA or
-    Pallas kernels over `[batch, frames, dim]` arrays with length masks;
+Design principles:
+  * features / GMM likelihoods / Viterbi / EM statistics run as batched XLA
+    programs over `[batch, frames, dim]` arrays with length masks;
   * parallelism is `jax.sharding.Mesh` + collectives (psum of EM stats), not
     the reference's std::thread-over-file-shards model;
   * WFST graph *compilation* stays on host (it is offline), the *decoder*

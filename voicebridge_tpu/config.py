@@ -253,22 +253,11 @@ class DecodeOptions:
     min_lmwt: int = 7
     max_lmwt: int = 17
     word_ins_penalties: tuple = (0.0, 0.5, 1.0)
-    # Device-memory budget (bytes) for the lattice FB working set; sets the
-    # per-dispatch sub-batch (fuller 128-lane rows, until HBM/the worker
-    # gives out).  Round 3 defaulted to 640 MB because larger working sets
-    # lost more to sparse-budget overflows refetching dense masks than they
-    # gained in lane fill.  Round 4 removed that failure mode (the word
-    # budget covers the worst window ever measured and the tiered fetch
-    # makes oversizing ~free), after which the sub-batch ladder measured on
-    # the 90k-state bench graph at B=128/T=1000: realistic density 13.5 ->
-    # 22.8 -> 35.2 audio-s/s at sub-batch 16/32/64 (worst-case 10.3 -> 9.7
-    # -> 13.3).  Round 5 filled the full 128-lane sub-batch: the
-    # batch-minor [., B] layout wastes half of every row gather below
-    # B=128, and sub-batch 128 measured 23.2 -> 32.7 audio-s/s at
-    # realistic density (4.2 GB working set, within a 16 GB v5e; the
-    # remote worker ran it stably).  The default targets sub-batch 128 on
-    # the 90k-state graph with the round-5 deferred sparse fetch's [K, B]
-    # buffers included in the accounting (steps/decode.py).
+    # Device-memory budget (bytes) for the lattice FB working set: bounds
+    # the per-dispatch sub-batch (steps/decode.py counts the beta slab,
+    # window snapshots, loglikes and the sparse-fetch [K, B] buffers per
+    # utterance).  4.6e9 gives sub-batch 128 on the 90k-state bench graph
+    # at T=1000.
     lattice_mem_budget: float = 4.6e9
 
 

@@ -3,7 +3,7 @@
 ``remove_eps_local`` mirrors Kaldi ``RemoveEpsLocal`` (``fstext/remove-eps-local.h``)
 in spirit: remove eps:eps arcs only where it cannot blow up the machine
 (in-degree-1 targets / single-arc sources).  Remaining eps arcs are harmless —
-the TPU decoder treats them as non-emitting arcs.  ``rm_epsilon`` is the full
+the device decoder treats them as non-emitting arcs.  ``rm_epsilon`` is the full
 closure-based removal for small graphs (L for G2P, tests).
 """
 

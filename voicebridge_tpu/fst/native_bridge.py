@@ -2,26 +2,22 @@
 
 The native library accelerates the host-side graph builds (compose,
 determinize-star, minimize-encoded, connect) ~50-100x over the Python
-implementations for LibriSpeech-scale graphs.  Falls back transparently: if
-the shared library isn't built yet, ``available()`` is False and callers use
-the pure-Python paths.  Build with ``make -C voicebridge_tpu/native`` (done
-automatically on first use when a compiler is present).
+implementations for LibriSpeech-scale graphs.  The library is built from
+the committed sources on first use (``voicebridge_tpu/native``); where it
+cannot be built or loaded, ``available()`` is False and callers use the
+pure-Python paths.
 """
 
 from __future__ import annotations
 
 import ctypes
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
+from ..native import load_library
 from .core import Arc, Fst, NO_STATE_ID, ZERO
 
-_NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libvbwfst.so"
 _LIB = None
-_TRIED = False
 
 
 class _CGraph(ctypes.Structure):
@@ -38,28 +34,18 @@ class _CGraph(ctypes.Structure):
     ]
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True, timeout=120)
-        return _LIB_PATH.exists()
-    except Exception:
-        return False
-
-
 def _load():
-    global _LIB, _TRIED
-    if _LIB is not None or _TRIED:
-        return _LIB
-    _TRIED = True
-    if not _LIB_PATH.exists() and not _build():
-        return None
-    lib = ctypes.CDLL(str(_LIB_PATH))
-    for name in ("vb_compose", "vb_determinize_star", "vb_minimize_encoded",
-                 "vb_connect", "vb_remove_eps_local"):
-        getattr(lib, name).restype = ctypes.c_int
-    lib.vb_free_graph.restype = None
-    _LIB = lib
+    global _LIB
+    if _LIB is None:
+        lib = load_library()
+        if lib is None:
+            return None
+        for name in ("vb_compose", "vb_determinize_star",
+                     "vb_minimize_encoded", "vb_connect",
+                     "vb_remove_eps_local"):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.vb_free_graph.restype = None
+        _LIB = lib
     return _LIB
 
 

@@ -1,4 +1,4 @@
-"""Full-covariance GMM, TPU-native layout.
+"""Full-covariance GMM, batched device layout.
 
 Counterpart of Kaldi ``FullGmm`` (``gmm/full-gmm.h:40``) and its MLE
 re-estimation (``gmm/mle-full-gmm.h``).  The reference pipeline trains
@@ -17,7 +17,7 @@ Log-likelihood per frame/component:
 
     gconst + x^T (inv_cov mu) - 0.5 x^T inv_cov x
 
-which evaluates on the MXU as one [N, D] x [D, P*M] matmul for the linear
+which evaluates as one [N, D] x [D, P*M] matmul for the linear
 term plus a batched quadratic form — see :func:`loglikes_full`.
 """
 
@@ -167,8 +167,8 @@ def pack_full_gmm(gmm: FullGmm):
 
 
 def loglikes_full(packed: dict, x) -> "jnp.ndarray":
-    """x [N, D] -> per-pdf loglikes [N, P]: linear term as a matmul on the
-    MXU, quadratic form as a batched einsum."""
+    """x [N, D] -> per-pdf loglikes [N, P]: linear term as a matmul,
+    quadratic form as a batched einsum."""
     import jax
     import jax.numpy as jnp
 

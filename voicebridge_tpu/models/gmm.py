@@ -1,4 +1,4 @@
-"""Diagonal-covariance GMM acoustic model, TPU-native layout.
+"""Diagonal-covariance GMM acoustic model, batched device layout.
 
 Counterpart of Kaldi ``DiagGmm``/``AmDiagGmm`` (``gmm/diag-gmm.h``,
 ``gmm/am-diag-gmm.h:36``) and the MLE re-estimation machinery
@@ -12,7 +12,7 @@ Instead of a ragged per-pdf collection, parameters live in dense padded arrays
     weights       [P, M]
 
 with ``M = max mixtures per pdf``: this is what lets the acoustic log-likelihood
-be evaluated as one ``[N, 2D] x [2D, P*M]`` matmul on the MXU
+be evaluated as one ``[N, 2D] x [2D, P*M]`` matmul
 (``voicebridge_tpu/ops/gmm_kernels.py``).  Per-pdf active-component counts are
 implicit in gconst = -inf padding.  gconst formula matches
 ``gmm/diag-gmm.cc:121-129``:

@@ -12,7 +12,7 @@ sum x^2); the objective is the standard ML criterion
 
 and both phone clustering (questions) and top-down splitting greedily maximize
 objf gain.  Host-side: the tree is built once per training stage from stats
-that the TPU accumulated.
+that the device accumulated.
 """
 
 from __future__ import annotations

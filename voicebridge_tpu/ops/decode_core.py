@@ -1,40 +1,31 @@
-"""TPU-native Viterbi decode core: batch-minor state scores + in-degree rows.
+"""Viterbi decode core: batch-minor state scores + in-degree rows.
 
 Replaces the token-passing hot loop of the reference decoder
 (``LatticeFasterDecoder::Decode``/``ProcessEmitting``,
 ``kaldi-master/src/decoder/lattice-faster-decoder.cc:72-89``) with a dense
-arc-parallel relaxation designed around what is actually fast on TPU
-(measured, tools/exp_decode_variants.py, tools/profile_real_decode.py):
+arc-parallel relaxation over every state, every frame:
 
 * **Batch-minor layout** ``alpha[S, B]``: every gather of a source state's
-  scores is a *row* gather (``B`` contiguous floats), which XLA:TPU lowers to
-  vector loads — element gathers in the lane dimension (round 1's
-  ``alpha[:, arc_src]`` with [B, A] results) run ~130x slower
-  (1.41 -> ~190+ audio-s/s at B=32 on one v5e chip).
+  scores is a *row* gather (``B`` contiguous floats) instead of an element
+  gather per (utterance, arc).
 * **In-degree rows**: incoming arcs of each state are grouped by
   ``(dst, pdf)`` into rows of width ``D`` (adapted to the run-length
   distribution).  A row is pdf-pure, so the acoustic score is ONE gathered
   value per row instead of one per arc.  Real HCLG graphs built with
   reorder-style self-loops (``fst/hmm_graph.py add_self_loops``) have the
   "all arcs entering a state share one pdf" property, so rows pack densely.
-* **Bucketed, gather-free row->state reduction**: XLA:TPU dynamic gathers
-  cost ~4-5 cycles per row regardless of row width, so the round-3 design —
-  a 3-stage gather tree (lvl1 chunks -> hub wide-reduce -> final merge) —
-  spent ~1M gathers/frame on the reduction versus ~0.5M on the actual arc
-  relaxation (measured 7.1 ms/frame values-only on the 90k-state real HCLG,
-  B=128).  Round 4 removes the tree entirely: states are RENUMBERED so that
-  states with the same (bucketed) row count are contiguous, every state owns
-  exactly ``bucket`` row slots (dead rows pad), and the per-state max is a
-  pure ``reshape(n, c, B).max(axis=1)`` per bucket — zero gathers.  Bucket
-  sizes grow by ~1.5x, bounding dead-row overhead at ~33% of rows (real
-  HCLGs: <10%, since ~85% of states have exactly one row and LM-backoff
-  hubs are few).
+* **Bucketed, gather-free row->state reduction**: states are RENUMBERED so
+  that states with the same (bucketed) row count are contiguous, every
+  state owns exactly ``bucket`` row slots (dead rows pad), and the
+  per-state max is a pure ``reshape(n, c, B).max(axis=1)`` per bucket —
+  zero gathers.  Bucket sizes grow by ~1.5x, bounding dead-row overhead at
+  ~33% of rows (real HCLGs: <10%, since ~85% of states have exactly one row
+  and LM-backoff hubs are few).
 * **One fused scan** over all frames per dispatch (no per-window Python
   dispatch).  Backpointers are ONE integer per state per frame: the winner
   code ``local_row * D + slot`` relative to the state's first row (uint8
   when ``max_bucket * D <= 256``, int16 otherwise).  Winner codes come from
-  equality-masked max inside each bucket — NOT take_along_axis, whose
-  lane-wise element gather is ~50x slower than the whole relaxation on TPU.
+  equality-masked max inside each bucket, not ``take_along_axis``.
 * Backtrace runs on device as a tiny [T] scan; one host fetch at the end.
 
 Scores are max-plus (higher is better), like ``ops/viterbi.py``.
@@ -277,7 +268,7 @@ def _emit_step(alpha, ll_t, dev: EmitPlanDev, acwt, rspec: tuple,
     am = jnp.take(ll_t, dev.row_pdf, axis=0) * acwt  # [R, B]
     g = jnp.take(alpha, dev.row_src, axis=0).reshape(r, d_w, b) \
         + dev.row_w[:, :, None]
-    slot = jnp.argmax(g, axis=1).astype(jnp.int32)  # [R, B] (VPU-cheap)
+    slot = jnp.argmax(g, axis=1).astype(jnp.int32)  # [R, B]
     v = jnp.max(g, axis=1) + am  # [R, B]
 
     parts_v, parts_c = [], []
@@ -378,7 +369,7 @@ def backtrace_scan(row_start, row_src_flat, d, bps, end_state, num_frames, t0):
 @jax.jit
 def select_end_state(alpha_end, final_score):
     """Device-side end-state selection (one tiny fetch instead of the full
-    ``[S+1, B]`` alpha table — the remote host link runs at ~20 MB/s).
+    ``[S+1, B]`` alpha table).
 
     Mirrors the reference's final-state preference
     (``lattice-faster-decoder.cc`` ``FindBestPath``): use final-weighted
@@ -401,8 +392,7 @@ def select_end_state(alpha_end, final_score):
 
 
 # device-resident backpointer budget for decode_best_path: above this the
-# recompute-backtrace mode kicks in (the remote worker degrades well before
-# HBM is actually full; measured in tools/prof_decode notes, VERDICT r3)
+# recompute-backtrace mode kicks in, bounding the backpointer table to 2 GB
 BP_BYTES_BUDGET = 2_000_000_000
 
 
@@ -427,7 +417,7 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
     walks chunks in reverse, recomputing each chunk's forward WITH
     backpointers from its snapshot and backtracing it immediately, so at
     most one chunk's bp table is ever resident.  2x forward FLOPs for a
-    T-fold memory cut — the standard rematerialization trade on TPU."""
+    T-fold memory cut — the standard rematerialization trade."""
     b, t_total, _p = loglikes.shape
     nf = jnp.asarray(num_frames, jnp.int32)
     alpha0 = jnp.concatenate(

@@ -1,4 +1,4 @@
-"""MFCC / delta / splice feature frontend as batched JAX (XLA:TPU) ops.
+"""MFCC / delta / splice feature frontend as batched JAX (XLA) ops.
 
 Numerics match the reference chain (``feat/feature-mfcc.cc:28-66``,
 ``feat/feature-window.cc:90-162``, ``feat/mel-computations.cc:46-120``,
@@ -11,9 +11,9 @@ Numerics match the reference chain (``feat/feature-mfcc.cc:28-66``,
 plus delta/delta-delta (``DeltaFeatures``) and frame splicing
 (``splice-feats``) with Kaldi's edge-clamping.
 
-TPU-first layout: everything operates on padded batches ``[B, T, ...]`` with a
+Batched layout: everything operates on padded batches ``[B, T, ...]`` with a
 per-utterance valid-length vector; the heavy stages (mel filterbank, DCT) are
-dense matmuls that map onto the MXU, and the whole chain is one fused XLA
+dense matmuls, and the whole chain is one fused XLA
 computation (no per-frame host loop like the reference's
 ``MfccComputer::Compute``).
 """
@@ -216,8 +216,8 @@ def mfcc_from_frames(frames: jnp.ndarray, opts: MfccOptions, window: jnp.ndarray
     frames = jnp.pad(frames, ((0, 0), (0, padded - frames.shape[1])))
     spec = jnp.fft.rfft(frames, axis=-1)
     power = (spec.real**2 + spec.imag**2)[:, : padded // 2]  # bins 0..N/2-1
-    # Full fp32 precision: on TPU the default matmul precision is bf16, which
-    # is fine for GMM scoring bulk math but not for the log-mel/DCT stages.
+    # Full fp32 precision: an accelerator's default matmul precision may
+    # be lower (TF32 on a GPU), which the log-mel/DCT stages cannot take.
     mel = jnp.dot(power, mel_mat.T, precision=jax.lax.Precision.HIGHEST)
     # htk_mode floors mel energies at 1.0 like HTK (MelBanks::Compute,
     # mel-computations.cc:238)
@@ -397,8 +397,8 @@ def durbin_lpc(autocorr: jnp.ndarray, order: int) -> tuple[jnp.ndarray, jnp.ndar
     ``autocorr [T, order+1] -> (lpc [T, order], residual energy E [T])``
     (reference: ``Durbin``, mel-computations.cc:269-299). The recursion depth
     is the static ``order`` (typically 12), so it is unrolled at trace time;
-    each step is vectorized over all frames (VPU work, negligible next to the
-    mel/FFT matmuls).
+    each step is vectorized over all frames (elementwise work, negligible
+    next to the mel/FFT matmuls).
     """
     t = autocorr.shape[0]
     e = autocorr[:, 0]
@@ -556,7 +556,8 @@ def add_deltas(feats: jnp.ndarray, num_frames, opts: DeltaOptions = DeltaOptions
         off = (len(s) - 1) // 2
         offsets = np.arange(-off, off + 1)
         shifted = _clamped_gather(feats, offsets, num_frames)  # [K, T, D]
-        outs.append(jnp.einsum("k,ktd->td", jnp.asarray(s), shifted))
+        outs.append(jnp.einsum("k,ktd->td", jnp.asarray(s), shifted,
+                               precision=jax.lax.Precision.HIGHEST))
     return jnp.concatenate(outs, axis=-1)
 
 

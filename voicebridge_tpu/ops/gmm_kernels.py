@@ -1,4 +1,4 @@
-"""Batched diagonal-GMM log-likelihood and EM statistics on TPU.
+"""Batched diagonal-GMM log-likelihood and EM statistics on the device.
 
 The acoustic hot kernel of the whole framework (reference:
 ``DecodableAmDiagGmmScaled::LogLikelihoodZeroBased``,
@@ -6,9 +6,9 @@ The acoustic hot kernel of the whole framework (reference:
 
     loglike = logsumexp_m( gconst[p,m] + miv[p,m]·x - 0.5·iv[p,m]·x² )
 
-TPU-native formulation: with x' = [x, x²] (``[N, 2D]``) and
+Batched formulation: with x' = [x, x²] (``[N, 2D]``) and
 W = [miv; -0.5·iv] flattened to ``[P·M, 2D]``, all scores for all pdfs are ONE
-``[N, 2D] @ [2D, P·M]`` matmul (MXU) + gconst bias + masked logsumexp over the
+``[N, 2D] @ [2D, P·M]`` matmul + gconst bias + masked logsumexp over the
 mixture axis — no per-frame loop, no per-pdf loop.  E-step sufficient
 statistics are segment-sums over the Viterbi-aligned pdf ids (replacing the
 reference's per-job accumulator files + GmmSumAccs with one ``segment_sum`` +
@@ -77,8 +77,8 @@ def loglikes(params: GmmParams, x: jnp.ndarray) -> jnp.ndarray:
 
 @jax.jit
 def loglikes_batch(params: GmmParams, feats: jnp.ndarray) -> jnp.ndarray:
-    """``[B, T, D] -> [B, T, P]`` (jitted: one fused program — eager op-by-op
-    dispatch is costly over remote-compile backends)."""
+    """``[B, T, D] -> [B, T, P]`` (jitted: one program, no eager op-by-op
+    dispatch)."""
     b, t, d = feats.shape
     return loglikes(params, feats.reshape(b * t, d)).reshape(b, t, params.num_pdfs)
 

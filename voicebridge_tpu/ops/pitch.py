@@ -183,41 +183,21 @@ def compute_nccf(wave: np.ndarray, opts: PitchOptions):
     return nccf_pitch_i @ taps.T, nccf_pov_i @ taps.T, lags
 
 
-_PITCH_LIB = None
-_PITCH_TRIED = False
-
-
 def _native_lib():
-    """The shared native library (voicebridge_tpu/native/libvbwfst.so, which
-    also carries the pitch Viterbi kernel), or None without a compiler."""
-    global _PITCH_LIB, _PITCH_TRIED
-    if _PITCH_LIB is not None or _PITCH_TRIED:
-        return _PITCH_LIB
-    _PITCH_TRIED = True
+    """The package's native library (``voicebridge_tpu/native``, which also
+    carries the pitch Viterbi kernel), or None where it is unavailable."""
     import ctypes
-    from pathlib import Path
 
-    lib_path = Path(__file__).resolve().parent.parent / "native" / \
-        "libvbwfst.so"
-    if not lib_path.exists():
-        import subprocess
-        try:
-            subprocess.run(["make", "-C", str(lib_path.parent)], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
-        if not lib_path.exists():
-            return None
-    lib = ctypes.CDLL(str(lib_path))
-    try:
-        fn = lib.vb_pitch_viterbi
-    except AttributeError:
+    from ..native import load_library
+
+    lib = load_library()
+    if lib is None:
         return None
+    fn = lib.vb_pitch_viterbi
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int32, ctypes.c_int32,
                    ctypes.POINTER(ctypes.c_double), ctypes.c_double,
                    ctypes.POINTER(ctypes.c_int32)]
-    _PITCH_LIB = lib
     return lib
 
 

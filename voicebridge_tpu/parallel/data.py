@@ -3,8 +3,8 @@
 Replaces the reference's ``SplitData``-over-shared-filesystem model
 (SURVEY.md §2.6 P1 / §5.8): each host process loads only its shard of
 utterances, builds process-local padded batches, and assembles them into
-globally-sharded ``jax.Array``s over the data mesh axis — DCN never sees raw
-audio, only the psum'd statistics.
+globally-sharded ``jax.Array``s over the data mesh axis — the interconnect
+never sees raw audio, only the psum'd statistics.
 
 Single-host (including the unit-test virtual mesh) degrades to the identity
 sharding, so the same training code runs unchanged from 1 chip to a pod.
@@ -67,8 +67,8 @@ def bucket_by_length(num_frames: dict, batch_size: int,
     """Group utterances into fixed-size batches with bounded padding waste.
 
     The reference pads nothing (its nj threads stream one utterance at a
-    time); on TPU everything is padded to the batch max, so batch composition
-    decides MXU utilization.  Sort by length, cut greedily whenever adding
+    time); here everything is padded to the batch max, so batch composition
+    decides how much device work is padding.  Sort by length, cut greedily whenever adding
     the next utterance would push mean padding above ``max_pad_ratio`` or the
     batch is full, then shuffle the *batches* (not the members) so training
     order is randomized without re-introducing padding waste.

@@ -8,7 +8,7 @@ Replaces the reference's entire parallel runtime — ``SplitData`` +
 * GMM parameters and decode graphs are replicated (a ``model`` axis exists for
   sharding very large mixture inventories later);
 * E-step sufficient statistics are ``psum``-reduced over ``data`` — the
-  file-barrier reduction becomes one ICI/DCN collective.
+  file-barrier reduction becomes one collective.
 """
 
 from __future__ import annotations
@@ -287,7 +287,7 @@ def decode_forward_sharded(mesh: Mesh, packed: bool, rspec: tuple):
 def em_estep_sharded_banded(mesh: Mesh, num_pdfs: int, num_tids: int,
                             offsets: tuple):
     """Banded-kernel variant of :func:`em_estep_sharded` — the production
-    alignment path (ops/align_band.py: gather-free shifts + one-hot MXU
+    alignment path (ops/align_band.py: gather-free shifts + one-hot matmul
     emissions) sharded over the data axis.  Inputs take the BandPlan arrays
     (W [B,S,K], pdf [B,S], alpha0 [B,S]) in place of padded arc arrays;
     ``offsets`` is the plan's static band-offset tuple.  T must be a

@@ -30,34 +30,12 @@ def _bucket(lengths: list[int], num_buckets: int = 4) -> list[int]:
     return out
 
 
-# Fused Pallas MFCC engages above this many frames per dispatch on TPU:
-# measured on one v5e chip (tools/bench_pallas.py, round 3) the XLA rfft
-# path wins below ~100k frames (6.4 ms @16k, 12.5 ms @65k vs the kernel's
-# ~16 ms flat dispatch floor) and the fused kernel wins 2.3x at 262k frames
-# (16.4 ms vs 37.9 ms) where both are HBM-bound and fusion saves the
-# spectrum/mel round-trips.  Corpus-scale buckets (300+ utts x ~350 frames)
-# sit above the gate; small batches and CPU tests stay on XLA.
-PALLAS_MFCC_MIN_FRAMES = 131072
-
-
 def compute_mfcc(waves: dict[str, np.ndarray], opts: MfccOptions,
                  dither_seed: int | None = 0) -> dict[str, np.ndarray]:
-    """utt -> samples  =>  utt -> [T, num_ceps] MFCC, batched by bucket.
-
-    Buckets whose total frame count crosses ``PALLAS_MFCC_MIN_FRAMES`` on a
-    TPU backend run through the fused Pallas frame-chain kernel
-    (ops/pallas_mfcc.py); smaller buckets use the XLA path.  With dithering
-    the two paths draw equally-distributed (not bit-identical) noise."""
+    """utt -> samples  =>  utt -> [T, num_ceps] MFCC, batched by bucket."""
     import jax
 
     ext = MfccExtractor(opts)
-    ext_pallas = None
-    if jax.default_backend() == "tpu":
-        try:
-            from ..ops.pallas_mfcc import MfccPallas
-            ext_pallas = MfccPallas(opts)
-        except ValueError:  # exotic num_ceps/num_bins: XLA path handles it
-            ext_pallas = None
     utts = sorted(waves)
     lengths = [len(waves[u]) for u in utts]
     buckets = _bucket(lengths)
@@ -78,10 +56,7 @@ def compute_mfcc(waves: dict[str, np.ndarray], opts: MfccOptions,
         if opts.frame_opts.dither != 0.0 and dither_seed is not None:
             keys = jax.random.split(
                 jax.random.PRNGKey(dither_seed + pad_len), bs)
-        use_pallas = (ext_pallas is not None
-                      and bs * max_frames >= PALLAS_MFCC_MIN_FRAMES)
-        feats, counts = (ext_pallas if use_pallas else ext).batched(
-            batch, ns, max_frames, keys)
+        feats, counts = ext.batched(batch, ns, max_frames, keys)
         feats, counts = np.asarray(feats), np.asarray(counts)
         for i, u in enumerate(us):
             out[u] = feats[i, : counts[i]].copy()

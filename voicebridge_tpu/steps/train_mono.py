@@ -6,7 +6,7 @@ Counterpart of the reference's ``TrainGmmMono``
     flat start (global mean/var)  ->  graphs  ->  equal alignment pass-0  ->
     EM loop: [realign on schedule] -> E-step stats -> M-step + mixup
 
-TPU re-design: the reference's nj-thread/ark-file sharding becomes one padded
+Batched re-design: the reference's nj-thread/ark-file sharding becomes one padded
 device batch — alignment is a single batched Viterbi scan, E-step statistics
 are segment-sums, and the per-job accumulator files + ``GmmSumAccs`` barrier
 become a ``psum`` over the data mesh axis when sharded (SURVEY.md §2.6 P1/P2).

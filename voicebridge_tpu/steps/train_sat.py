@@ -6,7 +6,7 @@ system's alignments, tree rebuild on adapted features, EM with transforms
 re-estimated on ``fmllr_iters``, and a final speaker-independent ``alimdl``
 (GmmAccStatsTwofeats) for first-pass decoding.
 
-TPU re-design notes: all speakers' fMLLR statistics are accumulated in ONE
+Batched re-design notes: all speakers' fMLLR statistics are accumulated in ONE
 device pass (segment-sum over a speaker-id vector) instead of the reference's
 per-speaker job loop; the row-wise solves run host-side per speaker (40x41
 matrices).  Transforms are re-estimated from the *base* features with the

@@ -7,7 +7,7 @@ the previous stage's alignments, then the usual EM loop with Viterbi
 realignment.  ``TrainLdaMllt``/``TrainSat`` reuse this skeleton with
 transform estimation interleaved (see train_lda_mllt.py / train_sat.py).
 
-TPU design notes: the whole E-step (likelihoods, Viterbi over per-utterance
+Design notes: the whole E-step (likelihoods, Viterbi over per-utterance
 graphs, stat segment-sums) is batched on device; tree building and M-step are
 host-side between iterations.
 """

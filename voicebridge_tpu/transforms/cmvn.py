@@ -6,7 +6,7 @@ normalizes each utterance by its speaker's stats
 (``kaldi-master/src/transform/cmvn.{h,cc}``, ``featbin/compute-cmvn-stats.cpp``,
 ``scr/steps/compute_cmvn_stats.cpp``).
 
-TPU design: stats for all speakers are accumulated in one
+Batched design: stats for all speakers are accumulated in one
 ``jax.ops.segment_sum`` over a speaker-id vector (the reference's
 ``spk2utt``-driven sequential loop becomes a single batched reduction), and
 application is a gather + fused elementwise op.

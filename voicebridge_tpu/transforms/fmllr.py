@@ -29,19 +29,21 @@ from ..ops.gmm_kernels import GmmParams, aligned_mixture_logliks
 def _fmllr_frame_stats(params: GmmParams, means, inv_vars, feats, pdf_ids,
                        weights):
     """Per-frame collapsed stats for one chunk: [N, D] w_miv / w_iv +
-    per-frame gamma mass (everything downstream is MXU matmuls)."""
+    per-frame gamma mass (everything downstream is matmuls)."""
     sel = aligned_mixture_logliks(params, feats, pdf_ids)  # [N, M]
     gamma = jax.nn.softmax(sel, axis=1) * weights[:, None]  # [N, M]
     mu = means[pdf_ids]  # [N, M, D]
     iv = inv_vars[pdf_ids]
-    w_miv = jnp.einsum("nm,nmd->nd", gamma, mu * iv)
-    w_iv = jnp.einsum("nm,nmd->nd", gamma, iv)
+    w_miv = jnp.einsum("nm,nmd->nd", gamma, mu * iv,
+                       precision=jax.lax.Precision.HIGHEST)
+    w_iv = jnp.einsum("nm,nmd->nd", gamma, iv,
+                      precision=jax.lax.Precision.HIGHEST)
     return jnp.sum(gamma, axis=1), w_miv, w_iv
 
 
 @jax.jit
 def _fmllr_reduce_one(gmass, w_miv, w_iv, feats):
-    """One speaker-chunk's (beta, K [D, D+1], G [D, D+1, D+1]): MXU-shaped
+    """One speaker-chunk's (beta, K [D, D+1], G [D, D+1, D+1]): matmul-shaped
     contractions that never materialize an [N, D, E, E] intermediate (the
     naive per-frame outer-product segment-sum is hundreds of GB at corpus
     scale)."""

@@ -11,7 +11,7 @@ enough occupancy, yielding one affine transform per *regression class* —
 more data, more transforms; little data degrades gracefully to one global
 transform.
 
-TPU design: the per-Gaussian posteriors and per-class sufficient statistics
+Device design: the per-Gaussian posteriors and per-class sufficient statistics
 are one batched einsum + segment reduction over frames (the class axis is
 tiny); only the small per-class row solves run on the host, reusing the
 speaker-batched fMLLR solver (``transforms/fmllr.py``).
@@ -167,11 +167,13 @@ def acc_regtree_fmllr_stats(params: GmmParams, means: jnp.ndarray,
     mu = means[pdf_ids]                                            # [N, M, D]
     iv = inv_vars[pdf_ids]
     xhat = jnp.concatenate([feats, jnp.ones((n, 1), feats.dtype)], axis=1)
-    w_miv = jnp.einsum("nm,nmc,nmd->ncd", gamma, onehot, mu * iv)
-    w_iv = jnp.einsum("nm,nmc,nmd->ncd", gamma, onehot, iv)
-    beta = jnp.einsum("nm,nmc->c", gamma, onehot)
-    k = jnp.einsum("ncd,ne->cde", w_miv, xhat)
-    g = jnp.einsum("ncd,ne,nf->cdef", w_iv, xhat, xhat)
+    hi = jax.lax.Precision.HIGHEST
+    w_miv = jnp.einsum("nm,nmc,nmd->ncd", gamma, onehot, mu * iv,
+                       precision=hi)
+    w_iv = jnp.einsum("nm,nmc,nmd->ncd", gamma, onehot, iv, precision=hi)
+    beta = jnp.einsum("nm,nmc->c", gamma, onehot, precision=hi)
+    k = jnp.einsum("ncd,ne->cde", w_miv, xhat, precision=hi)
+    g = jnp.einsum("ncd,ne,nf->cdef", w_iv, xhat, xhat, precision=hi)
     return beta, k, g
 
 

@@ -1,4 +1,4 @@
-"""Keyed array store: the TPU framework's "data plane".
+"""Keyed array store: the framework's "data plane".
 
 Replaces the reference's ark/scp table system
 (``util/kaldi-table.h:233-433``, ``util/kaldi-io.h:124-190``): utterance-keyed
@@ -7,7 +7,7 @@ matrices (features, alignments, stats) streamed between pipeline stages.
 Design: one ``.npz``-like directory store per archive — a single
 memory-mappable ``data.npy`` blob plus a JSON index of ``key -> (offset rows,
 shape)``.  All matrices in one archive share a dtype and trailing dims; this is
-exactly what batched TPU consumption wants (contiguous, sliceable, mmap-able)
+exactly what batched device consumption wants (contiguous, sliceable, mmap-able)
 and what the reference's per-utterance ark records are not.
 
 Also provides ``KeyedText`` for text tables (utt2spk, text, wav.scp).

@@ -1,12 +1,12 @@
 """Profiling & throughput metrics (SURVEY §5.1).
 
 The reference has only ``kaldi::Timer`` + per-job logs (``base/timer.h``);
-the TPU build makes tracing and audio-throughput first-class:
+this build makes tracing and audio-throughput first-class:
 
 * ``trace(logdir)`` — context manager around ``jax.profiler.trace`` so any
   pipeline stage can be captured for TensorBoard/Perfetto.
 * ``StageTimer`` — wall-clock per stage with audio-seconds accounting,
-  reported as audio-s/s (the framework's headline metric, BASELINE.md).
+  reported as audio-s/s (the framework's headline metric).
 """
 
 from __future__ import annotations
